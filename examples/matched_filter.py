@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Matched-filter detection pipeline on the fused kernels.
+"""Matched-filter detection pipeline on the template-bank convolution.
 
 The reference library exists to feed exactly this shape of pipeline
 (reference README.md:10 — shared-memory FFTs for convolution; its home
@@ -10,13 +10,12 @@ whole loop end to end:
   1. simulate noisy streams with pulse templates embedded at random
      offsets,
   2. correlate every stream against the whole template bank with ONE
-     fused kernel launch per frame batch (r2c computed once per signal,
-     shared across the bank — ``smfft_tpu.api.convolve_real`` bank mode),
+     call (r2c computed once per signal, shared across the bank —
+     ``smfft.api.convolve_real`` bank mode),
   3. detect: z-scored peak over the correlation lag surface.
 
 Run:  python examples/matched_filter.py [--streams 64] [--selfcheck]
-CPU runs use the Pallas interpreter automatically; on a TPU the bank
-correlation is a single-HBM-pass Mosaic kernel.
+on whatever device JAX finds (the CPU included).
 """
 
 import argparse
@@ -48,14 +47,8 @@ def main(argv=None):
                    help="verify detections against the planted truth")
     args = p.parse_args(argv)
 
-    import jax
     import jax.numpy as jnp
-    import smfft_tpu as S
-    from smfft_tpu import api
-
-    if jax.default_backend() != "tpu":
-        import smfft_tpu.ops.pallas_c2c as PC
-        PC.set_interpret(True)
+    from smfft import api
 
     rng = np.random.default_rng(7)
     b, t, m, k = args.streams, args.length, args.templates, args.klen
@@ -75,8 +68,8 @@ def main(argv=None):
     taps[:, :k] = bank[:, ::-1]
     hf = api.rfft(jnp.asarray(taps))            # (m, n/2+1), one-time
 
-    # the hot loop: every stream against every template, ONE fused
-    # kernel — each signal's r2c is computed once for the whole bank
+    # the hot loop: every stream against every template in one call —
+    # each signal's r2c is computed once for the whole bank
     corr = api.convolve_real(jnp.asarray(x), hf)          # (m, b, n)
 
     lags = np.asarray(corr)[:, :, k - 1:t]      # valid cross-corr lags

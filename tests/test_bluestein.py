@@ -1,11 +1,11 @@
-"""Arbitrary-length FFT (smfft_tpu.bluestein) vs the numpy.fft oracle."""
+"""Arbitrary-length FFT (smfft.bluestein) vs the numpy.fft oracle."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from smfft_tpu import bluestein
+from smfft import bluestein
 
 
 @pytest.fixture
@@ -77,28 +77,21 @@ def test_czt_zoom_band(rng):
 
 
 @pytest.mark.parametrize("n", [100, 1000])
-def test_fused_bluestein_kernel(rng, n):
-    """The one-pass Pallas kernel (ops/chirp.py) in interpreter mode."""
-    import smfft_tpu.ops.pallas_c2c as PC
-    from smfft_tpu.ops import chirp
-
-    PC.set_interpret(True)
-    try:
-        m = bluestein._conv_length(2 * n - 1)
-        np_ = chirp._n_pad(n)
-        x = (rng.random((12, n)) + 1j * rng.random((12, n))
-             - 0.5 - 0.5j).astype(np.complex64)
-        vr = np.zeros((12, np_), np.float32)
-        vi = np.zeros((12, np_), np.float32)
-        vr[:, :n], vi[:, :n] = x.real, x.imag
-        o_r, o_i = chirp.bluestein_planar(jnp.asarray(vr),
-                                          jnp.asarray(vi), n, m)
-        got = np.asarray(o_r) + 1j * np.asarray(o_i)
-        want = np.fft.fft(x.astype(np.complex128))
-        assert np.max(np.abs(got[:, :n] - want)) < 1e-3
-        assert np.max(np.abs(got[:, n:])) == 0.0   # padded lanes zeroed
-    finally:
-        PC.set_interpret(False)
+def test_planar_bluestein_padded_rows(rng, n):
+    """planar.fft_any on 128-lane padded rows: Bluestein on the padded
+    contract, padded output lanes exactly zero."""
+    from smfft import planar
+    np_ = -(-n // 128) * 128
+    x = (rng.random((12, n)) + 1j * rng.random((12, n))
+         - 0.5 - 0.5j).astype(np.complex64)
+    vr = np.zeros((12, np_), np.float32)
+    vi = np.zeros((12, np_), np.float32)
+    vr[:, :n], vi[:, :n] = x.real, x.imag
+    o_r, o_i = planar.fft_any(jnp.asarray(vr), jnp.asarray(vi), n=n)
+    got = np.asarray(o_r) + 1j * np.asarray(o_i)
+    want = np.fft.fft(x.astype(np.complex128))
+    assert np.max(np.abs(got[:, :n] - want)) < 1e-3
+    assert np.max(np.abs(got[:, n:])) == 0.0   # padded lanes zeroed
 
 
 def test_czt_spiral_contour(rng):
@@ -116,7 +109,7 @@ def test_czt_spiral_contour(rng):
 
 def test_zoom_fft_vs_scipy(rng):
     import scipy.signal as sps
-    from smfft_tpu.bluestein import zoom_fft
+    from smfft.bluestein import zoom_fft
 
     n, m = 400, 128
     x = (rng.random((3, n)) + 1j * rng.random((3, n)) - 0.5 - 0.5j
@@ -128,7 +121,7 @@ def test_zoom_fft_vs_scipy(rng):
 
 
 def test_zoom_fft_full_band_is_dft(rng):
-    from smfft_tpu.bluestein import zoom_fft
+    from smfft.bluestein import zoom_fft
 
     n = 100
     x = (rng.random((2, n)) + 1j * rng.random((2, n)) - 0.5 - 0.5j

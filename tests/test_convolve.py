@@ -1,9 +1,10 @@
-"""Fused spectral convolution tests (Pallas interpreter on CPU).
+"""Spectral convolution tests: api.convolve / api.convolve_real and
+their (M, ...) template-bank forms.
 
-The convolution theorem oracle is numpy: ifft(fft(x) * H).  Covers the
-fused one-pass kernel across sizes (incl. the n < 128 row packing), the
-api wrapper on every backend, precision tiers, and a time-domain
-circular-convolution cross-check.
+The convolution theorem oracle is numpy: ifft(fft(x) * H).  Covers sizes
+on the jnp.fft route and the matmul engine, the api wrapper on every
+backend, precision tiers, and a time-domain circular-convolution
+cross-check.
 """
 
 import numpy as np
@@ -11,18 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import smfft_tpu as S
-import smfft_tpu.ops.pallas_c2c as PC
-from smfft_tpu.ops import convolve as CV
+import smfft as S
 
 from conftest import max_abs_err
 
-
-@pytest.fixture(autouse=True, scope="module")
-def interpret_mode():
-    PC.set_interpret(True)
-    yield
-    PC.set_interpret(False)
+ENGINES = ["jnp", "xla"]
 
 
 def rand_c(rng, *shape):
@@ -44,22 +38,23 @@ def tol(n):
     return 5e-7 * n ** 0.75 * 8
 
 
+@pytest.mark.parametrize("backend", ENGINES)
 @pytest.mark.parametrize("n", [32, 64, 128, 512, 2048])
-def test_fused_convolve_vs_numpy(rng, n):
-    b = max(2, 256 // n) * max(1, 128 // n)  # keep sub-128 packing legal
+def test_convolve_vs_numpy(rng, n, backend):
+    b = max(2, 256 // n)
     x = rand_c(rng, b, n)
     h = rand_c(rng, n)
-    got = np.asarray(CV.convolve_pallas(to_dev(x), to_dev(h)))
+    got = np.asarray(S.convolve(to_dev(x), to_dev(h), backend=backend))
     assert max_abs_err(got, oracle(x, h)) < tol(n)
 
 
 def test_identity_filter_roundtrip(rng):
     """H == 1 everywhere -> convolution is the identity (checks the 1/N
-    folding and the kernel A/B layout contract end to end)."""
+    normalization end to end)."""
     n, b = 1024, 16
     x = rand_c(rng, b, n)
     h = np.ones(n, np.complex64)
-    got = np.asarray(CV.convolve_pallas(to_dev(x), to_dev(h)))
+    got = np.asarray(S.convolve(to_dev(x), to_dev(h)))
     assert max_abs_err(got, x) < tol(n)
 
 
@@ -70,14 +65,14 @@ def test_time_domain_circular_convolution(rng):
     x = rand_c(rng, b, n)
     h_t = rand_c(rng, n)
     h_f = np.fft.fft(h_t.astype(np.complex128)).astype(np.complex64)
-    got = np.asarray(S.convolve(to_dev(x), to_dev(h_f), backend="pallas"))
+    got = np.asarray(S.convolve(to_dev(x), to_dev(h_f), backend="jnp"))
     idx = (np.arange(n)[:, None] - np.arange(n)[None, :]) % n
     ref = np.einsum("bk,nk->bn", x.astype(np.complex128),
                     h_t.astype(np.complex128)[idx])
     assert max_abs_err(got, ref) < tol(n) * 4
 
 
-@pytest.mark.parametrize("backend", ["xla", "spec"])
+@pytest.mark.parametrize("backend", ["xla", "spec", "jnp"])
 def test_backend_fallbacks_agree(rng, backend):
     n, b = 512, 8
     x = rand_c(rng, b, n)
@@ -90,8 +85,8 @@ def test_fast_precision_runs(rng):
     n, b = 512, 8
     x = rand_c(rng, b, n)
     h = rand_c(rng, n)
-    got = np.asarray(CV.convolve_pallas(to_dev(x), to_dev(h),
-                                        precision="fast"))
+    got = np.asarray(S.convolve(to_dev(x), to_dev(h), backend="xla",
+                                precision="fast"))
     # fast tier: throughput knob, loose gate (two cores + product)
     assert max_abs_err(got, oracle(x, h)) < 5e-3
 
@@ -104,14 +99,15 @@ def test_wrong_shapes_raise(rng):
         S.convolve(x, to_dev(rand_c(rng, 256)))
 
 
+@pytest.mark.parametrize("backend", ENGINES)
 @pytest.mark.parametrize("n,m", [(64, 2), (512, 3)])
-def test_filter_bank(rng, n, m):
-    """Bank kernel: every signal against every template, forward FFT
-    computed once per signal in-kernel."""
+def test_filter_bank(rng, n, m, backend):
+    """Bank form: every signal against every template, forward FFT
+    computed once per signal."""
     b = max(8, 128 // n * 2)
     x = rand_c(rng, b, n)
     hs = rand_c(rng, m, n)
-    got = np.asarray(CV.convolve_bank_pallas(to_dev(x), to_dev(hs)))
+    got = np.asarray(S.convolve(to_dev(x), to_dev(hs), backend=backend))
     assert got.shape == (m, b, n)
     for j in range(m):
         assert max_abs_err(got[j], oracle(x, hs[j])) < tol(n)
@@ -121,7 +117,7 @@ def test_filter_bank_api_and_fallback(rng):
     n, m, b = 256, 2, 8
     x = rand_c(rng, b, n)
     hs = rand_c(rng, m, n)
-    got_p = np.asarray(S.convolve(to_dev(x), to_dev(hs), backend="pallas"))
+    got_p = np.asarray(S.convolve(to_dev(x), to_dev(hs), backend="jnp"))
     got_x = np.asarray(S.convolve(to_dev(x), to_dev(hs), backend="xla"))
     assert got_p.shape == got_x.shape == (m, b, n)
     for j in range(m):
@@ -135,14 +131,16 @@ def real_oracle(x, h_half):
                         * h_half.astype(np.complex128), x.shape[-1])
 
 
+@pytest.mark.parametrize("backend", ENGINES)
 @pytest.mark.parametrize("n", [256, 512, 2048])
-def test_real_convolve_vs_numpy(rng, n):
-    """Fused r2c -> half-spectrum multiply -> c2r kernel."""
+def test_real_convolve_vs_numpy(rng, n, backend):
+    """r2c -> half-spectrum multiply -> c2r."""
     b = 16
     x = (rng.random((b, n)) * 2 - 1).astype(np.float32)
     h_t = (rng.random(n) * 2 - 1).astype(np.float32)
     h = np.fft.rfft(h_t.astype(np.float64)).astype(np.complex64)
-    got = np.asarray(CV.convolve_real_pallas(jnp.array(x), to_dev(h)))
+    got = np.asarray(S.convolve_real(jnp.array(x), to_dev(h),
+                                     backend=backend))
     assert got.shape == (b, n)
     assert max_abs_err(got, real_oracle(x, h)) < tol(n)
 
@@ -153,7 +151,7 @@ def test_real_convolve_identity(rng):
     n, b = 1024, 8
     x = (rng.random((b, n)) * 2 - 1).astype(np.float32)
     h = np.ones(n // 2 + 1, np.complex64)
-    got = np.asarray(CV.convolve_real_pallas(jnp.array(x), to_dev(h)))
+    got = np.asarray(S.convolve_real(jnp.array(x), to_dev(h)))
     assert max_abs_err(got, x) < tol(n)
 
 
@@ -164,7 +162,7 @@ def test_real_convolve_api_and_fallback(rng):
     h = np.fft.rfft(h_t.astype(np.float64)).astype(np.complex64)
     ref = real_oracle(x, h)
     got_p = np.asarray(S.convolve_real(jnp.array(x), to_dev(h),
-                                       backend="pallas"))
+                                       backend="jnp"))
     got_x = np.asarray(S.convolve_real(jnp.array(x), to_dev(h),
                                        backend="xla"))
     assert max_abs_err(got_p, ref) < tol(n)
@@ -182,7 +180,7 @@ def test_real_filter_bank(rng):
     hts = (rng.random((m, n)) * 2 - 1).astype(np.float32)
     hs = np.fft.rfft(hts.astype(np.float64)).astype(np.complex64)
     got = np.asarray(S.convolve_real(jnp.array(x), to_dev(hs),
-                                     backend="pallas"))
+                                     backend="jnp"))
     got_x = np.asarray(S.convolve_real(jnp.array(x), to_dev(hs),
                                        backend="xla"))
     assert got.shape == got_x.shape == (m, b, n)
@@ -193,11 +191,10 @@ def test_real_filter_bank(rng):
 
 
 def test_odd_batch_padding(rng):
-    """Non-multiple-of-8 row batches pad internally (same contract as
-    fft_planar)."""
+    """Odd row batches and extra leading axes keep their shape."""
     n, b = 256, 13
     x = rand_c(rng, b, n)
     h = rand_c(rng, n)
-    got = np.asarray(CV.convolve_pallas(to_dev(x), to_dev(h)))
+    got = np.asarray(S.convolve(to_dev(x), to_dev(h)))
     assert got.shape == (b, n)
     assert max_abs_err(got, oracle(x, h)) < tol(n)

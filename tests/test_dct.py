@@ -1,4 +1,4 @@
-"""DCT/DST (smfft_tpu.dct) vs direct O(n^2) float64 oracles
+"""DCT/DST (smfft.dct) vs direct O(n^2) float64 oracles
 (scipy.fft definitions, types 2 and 3, norm=None and "ortho")."""
 
 import numpy as np
@@ -8,8 +8,8 @@ import jax.numpy as jnp
 
 import sys
 
-import smfft_tpu.dct  # noqa: F401 — the package re-exports shadow the module
-D = sys.modules["smfft_tpu.dct"]
+import smfft.dct  # noqa: F401 — the package re-exports shadow the module
+D = sys.modules["smfft.dct"]
 
 
 @pytest.fixture

@@ -1,5 +1,5 @@
-"""The examples run end to end on CPU (Pallas interpreter) and detect
-their planted signals."""
+"""The examples run end to end on CPU and detect their planted
+signals."""
 
 import sys
 

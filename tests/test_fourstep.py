@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import smfft_tpu as S
-from smfft_tpu.ops import fourstep
-from smfft_tpu.parallel import (batch_mesh, distributed_fft,
+import smfft as S
+from smfft.ops import fourstep
+from smfft.parallel import (batch_mesh, distributed_fft,
                                 distributed_ifft, plan_distributed)
 
 from conftest import max_abs_err
@@ -102,20 +102,29 @@ def test_fft_large_rejects_bad_sizes(rng):
         S.fft_large(jnp.zeros(3 << 14, jnp.complex64), backend="xla")
 
 
-def test_fourstep_pallas_interpret(rng):
-    """The four-step glue over the PRODUCT row kernels (interpret mode)."""
-    import smfft_tpu.ops.pallas_c2c as PC
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
+def test_fourstep_explicit_factors(rng, backend):
+    """The four-step glue over either engine's row transforms, with the
+    factor split given explicitly."""
+    n = 1 << 12
+    x = (rng.random(n) + 1j * rng.random(n) - 0.5 - 0.5j
+         ).astype(np.complex64)
+    got = fourstep.fft_four_step(jnp.array(x), backend=backend,
+                                 factors=(64, 64))
+    assert rel_err(got, np.fft.fft(x.astype(np.complex128))) < 2e-6
 
-    PC.set_interpret(True)
-    try:
-        n = 1 << 12   # 64 x 64 rows: cheap enough for interpret mode
-        x = (rng.random(n) + 1j * rng.random(n) - 0.5 - 0.5j
-             ).astype(np.complex64)
-        got = fourstep.fft_four_step(jnp.array(x), backend="pallas",
-                                     factors=(64, 64))
-        assert rel_err(got, np.fft.fft(x.astype(np.complex128))) < 2e-6
-    finally:
-        PC.set_interpret(False)
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 17])
+def test_fft_large_jnp_matches_numpy(rng, n):
+    """backend='jnp' transforms the full length at once."""
+    x = (rng.random((2, n)) + 1j * rng.random((2, n)) - 0.5 - 0.5j
+         ).astype(np.complex64)
+    got = S.fft_large(jnp.array(x), backend="jnp")
+    assert rel_err(got, np.fft.fft(x.astype(np.complex128))) < 2e-6
+    back = S.ifft_large(got, backend="jnp")
+    assert max_abs_err(back, x) < 1e-5
+    raw = S.ifft_large(got, backend="jnp", norm=None)
+    assert rel_err(np.asarray(raw) / n, x) < 2e-6
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +301,7 @@ def test_distributed_batched_transposed_roundtrip(rng):
 
 def test_distributed_rfft_matches_numpy(rng):
     """Distributed pack-trick R2C: packed half-spectrum vs numpy.rfft."""
-    from smfft_tpu.parallel import distributed_irfft, distributed_rfft
+    from smfft.parallel import distributed_irfft, distributed_rfft
     mesh = fft_mesh()
     n = 1 << 17
     x = rng.standard_normal((2, n)).astype(np.float32)
@@ -314,7 +323,7 @@ def test_distributed_rfft_matches_numpy(rng):
 
 
 def test_distributed_rfft_vector(rng):
-    from smfft_tpu.parallel import distributed_irfft, distributed_rfft
+    from smfft.parallel import distributed_irfft, distributed_rfft
     mesh = fft_mesh()
     n = 1 << 16
     x = rng.standard_normal(n).astype(np.float32)
@@ -324,20 +333,14 @@ def test_distributed_rfft_vector(rng):
     assert np.max(np.abs(np.asarray(back) - x)) < 1e-5
 
 
-def test_distributed_pallas_interpret(rng):
-    """The product kernel under shard_map + all_to_all (interpret)."""
-    import smfft_tpu.ops.pallas_c2c as PC
-
-    PC.set_interpret(True)
-    try:
-        mesh = fft_mesh()
-        n = 1 << 11   # 64 x 32
-        x = (rng.random(n) + 1j * rng.random(n) - 0.5 - 0.5j
-             ).astype(np.complex64)
-        got = distributed_fft(jnp.array(x), mesh, backend="pallas")
-        assert rel_err(got, np.fft.fft(x.astype(np.complex128))) < 2e-6
-    finally:
-        PC.set_interpret(False)
+def test_distributed_jnp_rows(rng):
+    """The jnp.fft row transforms under shard_map + all_to_all."""
+    mesh = fft_mesh()
+    n = 1 << 11   # 64 x 32
+    x = (rng.random(n) + 1j * rng.random(n) - 0.5 - 0.5j
+         ).astype(np.complex64)
+    got = distributed_fft(jnp.array(x), mesh, backend="jnp")
+    assert rel_err(got, np.fft.fft(x.astype(np.complex128))) < 2e-6
 
 
 def test_large_rejects_bad_norm():
@@ -349,7 +352,6 @@ def test_large_rejects_bad_norm():
 
 
 def test_rfft_large_small_sizes_differentiable(rng):
-    # small sizes must route through the custom-VJP wrappers (ADVICE r3)
     import jax
     x = jnp.asarray(rng.standard_normal(1024).astype(np.float32))
     g = jax.grad(lambda v: jnp.sum(jnp.abs(S.rfft_large(v, backend="xla"))
@@ -357,97 +359,35 @@ def test_rfft_large_small_sizes_differentiable(rng):
     assert g.shape == x.shape and bool(jnp.all(jnp.isfinite(g)))
 
 
-# ---------------------------------------------------------------------------
-# fused pallas huge-N path (ops/rowfour.py + ops/fourstep_fused.py),
-# exercised through the Pallas interpreter on CPU
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def interpret():
-    import smfft_tpu.ops.pallas_c2c as PC
-    PC.set_interpret(True)
-    try:
-        yield
-    finally:
-        PC.set_interpret(False)
 
 
-@pytest.mark.parametrize("n", [1 << 15, 1 << 16])
-def test_rowfour_matches_numpy(rng, interpret, n):
-    """Single-HBM-pass four-step kernel vs numpy, fwd + scaled inverse."""
-    from smfft_tpu.ops import rowfour
-    xr = (rng.random((3, n)) - 0.5).astype(np.float32)
-    xi = (rng.random((3, n)) - 0.5).astype(np.float32)
-    o_r, o_i = rowfour.fft_rowfour_planar(jnp.array(xr), jnp.array(xi))
-    want = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
-    got = np.asarray(o_r) + 1j * np.asarray(o_i)
-    assert rel_err(got, want) < 2e-6
-    # inverse with the 1/N folded into the twiddle tables
-    br, bi = rowfour.fft_rowfour_planar(o_r, o_i, inverse=True,
-                                        scale=1.0 / n)
-    assert max_abs_err(np.asarray(br) + 1j * np.asarray(bi),
-                       xr + 1j * xi) < 1e-5
+@pytest.mark.parametrize("packed", [False, True])
+def test_rfft_large_jnp_matches_numpy(rng, packed):
+    """backend='jnp': full-length rfft in both layouts, and back."""
+    n = 1 << 16
+    x = (rng.random((2, n)) - 0.5).astype(np.float32)
+    got = np.asarray(S.rfft_large(jnp.array(x), backend="jnp",
+                                  packed=packed))
+    want = np.fft.rfft(x.astype(np.float64))
+    if packed:
+        assert got.shape == (2, n // 2)
+        assert rel_err(got[:, 1:], want[:, 1:n // 2]) < 2e-6
+        assert np.max(np.abs(got[:, 0].real - want[:, 0].real)) < 1e-2
+        assert np.max(np.abs(got[:, 0].imag - want[:, n // 2].real)) < 1e-2
+    else:
+        assert rel_err(got, want) < 2e-6
+    back = S.irfft_large(jnp.asarray(got), n=n, backend="jnp",
+                         packed=packed)
+    assert np.max(np.abs(np.asarray(back) - x)) < 2e-4
+    raw = S.irfft_large(jnp.asarray(got), n=n, backend="jnp",
+                        packed=packed, norm=None)
+    assert np.max(np.abs(np.asarray(raw) / (n // 2) - x)) < 2e-4
 
 
-def test_rowfour_odd_batch_pads(rng, interpret):
-    from smfft_tpu.ops import rowfour
-    n = 1 << 15
-    xr = (rng.random((9, n)) - 0.5).astype(np.float32)
-    xi = np.zeros((9, n), np.float32)
-    o_r, o_i = rowfour.fft_rowfour_planar(jnp.array(xr), jnp.array(xi))
-    want = np.fft.fft(xr.astype(np.float64))
-    assert rel_err(np.asarray(o_r) + 1j * np.asarray(o_i), want) < 2e-6
-
-
-def test_fourstep_fused_matches_numpy(rng, interpret):
-    """Fused two-pass four-step (N = 2**18) vs numpy, fwd + inverse."""
-    from smfft_tpu.ops import fourstep_fused
-    n = 1 << 18
-    xr = (rng.random((2, n)) - 0.5).astype(np.float32)
-    xi = (rng.random((2, n)) - 0.5).astype(np.float32)
-    o_r, o_i = fourstep_fused.fft_large_planar(jnp.array(xr),
-                                               jnp.array(xi))
-    want = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
-    assert rel_err(np.asarray(o_r) + 1j * np.asarray(o_i), want) < 2e-6
-    br, bi = fourstep_fused.fft_large_planar(o_r, o_i, inverse=True,
-                                             scale=1.0 / n)
-    assert max_abs_err(np.asarray(br) + 1j * np.asarray(bi),
-                       xr + 1j * xi) < 1e-5
-
-
-@pytest.mark.parametrize("n,b", [(1 << 18, 2), (1 << 22, 1)])
-def test_hugefft_matches_numpy(rng, interpret, n, b):
-    """Retile-free multi-pass pipeline (ops/hugefft.py): two-pass at
-    2**18, three-pass (P0 + P1 rowfour + P2 contraction) at 2**22."""
-    from smfft_tpu.ops import hugefft
-    xr = (rng.random((b, n)) - 0.5).astype(np.float32)
-    xi = (rng.random((b, n)) - 0.5).astype(np.float32)
-    o_r, o_i = hugefft.fft_huge_planar(jnp.array(xr), jnp.array(xi))
-    want = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
-    assert rel_err(np.asarray(o_r) + 1j * np.asarray(o_i), want) < 2e-6
-    br, bi = hugefft.fft_huge_planar(o_r, o_i, inverse=True,
-                                     scale=1.0 / n)
-    assert max_abs_err(np.asarray(br) + 1j * np.asarray(bi),
-                       xr + 1j * xi) < 2e-5
-
-
-def test_hugefft_rejects_bad_sizes():
-    from smfft_tpu.ops import hugefft
-    z = jnp.zeros((1, 3 * (1 << 18)), jnp.float32)
-    with pytest.raises(ValueError, match="Error wrong FFT length!"):
-        hugefft.fft_huge_planar(z, z)
-    z = jnp.zeros((1, 1 << 16), jnp.float32)
-    with pytest.raises(ValueError, match="Error wrong FFT length!"):
-        hugefft.fft_huge_planar(z, z)
-    z = jnp.zeros((1, 1 << 22), jnp.float32)
-    with pytest.raises(ValueError, match="two-pass plan caps"):
-        hugefft.fft_huge_planar(z, z, plan="two:fold")
-
-
-def test_planar_fft_large_dispatch(rng, interpret):
-    """planar.fft_large / ifft_large: rowfour at 2**15, roundtrip with
-    norm='backward' folded into the tables."""
-    from smfft_tpu import planar
+def test_planar_fft_large_dispatch(rng):
+    """planar.fft_large / ifft_large at 2**15, roundtrip with
+    norm='backward'."""
+    from smfft import planar
     n = 1 << 15
     xr = (rng.random((2, n)) - 0.5).astype(np.float32)
     xi = (rng.random((2, n)) - 0.5).astype(np.float32)
@@ -459,8 +399,8 @@ def test_planar_fft_large_dispatch(rng, interpret):
                        xr + 1j * xi) < 1e-5
 
 
-def test_planar_fft_large_row_sizes_route_to_row_kernel(rng, interpret):
-    from smfft_tpu import planar
+def test_planar_fft_large_row_sizes_route_to_row_transform(rng):
+    from smfft import planar
     n = 1 << 10
     xr = (rng.random((2, n)) - 0.5).astype(np.float32)
     o_r, o_i = planar.fft_large(jnp.array(xr), jnp.zeros((2, n)))
@@ -468,43 +408,35 @@ def test_planar_fft_large_row_sizes_route_to_row_kernel(rng, interpret):
     assert rel_err(np.asarray(o_r) + 1j * np.asarray(o_i), want) < 2e-6
 
 
-def test_api_fft_large_pallas_backend(rng, interpret):
-    """Complex api surface routed to the fused path (backend='pallas')."""
+def test_planar_rfft_large_roundtrip(rng):
+    from smfft import planar
+    n = 1 << 15
+    x = (rng.random((2, n)) - 0.5).astype(np.float32)
+    hr, hi = planar.rfft_large(jnp.array(x))
+    want = np.fft.rfft(x.astype(np.float64))
+    got = np.asarray(hr) + 1j * np.asarray(hi)
+    assert rel_err(got[:, 1:], want[:, 1:n // 2]) < 2e-6
+    back = planar.irfft_large(hr, hi)
+    assert np.max(np.abs(np.asarray(back) - x)) < 2e-4
+    with pytest.raises(ValueError, match="wrong FFT length"):
+        planar.rfft_large(jnp.zeros((1, 1 << 14 | 1 << 13)))
+
+
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
+def test_api_fft_large_backends(rng, backend):
     n = 1 << 15
     x = (rng.random(n) + 1j * rng.random(n) - 0.5 - 0.5j
          ).astype(np.complex64)
-    got = S.fft_large(jnp.array(x), backend="pallas")
+    got = S.fft_large(jnp.array(x), backend=backend)
     assert rel_err(got, np.fft.fft(x.astype(np.complex128))) < 2e-6
-    back = S.ifft_large(got, backend="pallas")
+    back = S.ifft_large(got, backend=backend)
     assert max_abs_err(back, x) < 1e-5
 
 
-@pytest.mark.slow
-def test_hugefft_five_pass_matches_numpy(rng, interpret):
-    """Five-pass plan (inner three-pass per row + outer contraction,
-    the 2**25..2**28 finisher) exercised at its smallest valid size.
-    Device evidence at 2**25 lives in TPU_SMOKE.txt (VERDICT r4 #4)."""
-    from smfft_tpu.ops import hugefft
-    n = 1 << 21
-    xr = (rng.random((1, n)) - 0.5).astype(np.float32)
-    xi = (rng.random((1, n)) - 0.5).astype(np.float32)
-    o_r, o_i = hugefft.fft_huge_planar(jnp.array(xr), jnp.array(xi),
-                                       plan="five")
-    want = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
-    assert rel_err(np.asarray(o_r) + 1j * np.asarray(o_i), want) < 2e-6
-
-
-def test_hugefft_five_pass_rejects_small_n():
-    from smfft_tpu.ops import hugefft
-    z = jnp.zeros((1, 1 << 19), jnp.float32)
-    with pytest.raises(ValueError, match="five-pass plan needs"):
-        hugefft.fft_huge_planar(z, z, plan="five")
-
-
-def test_fft_large_differentiable_pallas(rng, interpret):
-    """ADVICE r4 medium: jax.grad through the fused huge-N pallas paths
-    (custom VJP — the DFT matrix is symmetric, vjp is the same
-    transform of the cotangent)."""
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
+def test_fft_large_differentiable(rng, backend):
+    """jax.grad through fft_large: the DFT matrix is symmetric, so the
+    gradient matches jnp.fft's."""
     import jax
     n = 1 << 15
     x = (rng.random(n) + 1j * rng.random(n) - 0.5 - 0.5j
@@ -512,30 +444,33 @@ def test_fft_large_differentiable_pallas(rng, interpret):
     xj = jnp.array(x)
 
     g = jax.grad(lambda v: jnp.sum(jnp.abs(S.fft_large(
-        v, backend="pallas")) ** 2))(xj)
+        v, backend=backend)) ** 2))(xj)
     want = jax.grad(lambda v: jnp.sum(jnp.abs(jnp.fft.fft(v)) ** 2))(xj)
     assert g.shape == xj.shape and bool(jnp.all(jnp.isfinite(g)))
     assert rel_err(np.asarray(g), np.asarray(want)) < 1e-5
 
 
-def test_rfft_large_differentiable_pallas(rng, interpret):
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
+def test_rfft_large_differentiable(rng, backend):
     import jax
     n = 1 << 15
     x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
     g = jax.grad(lambda v: jnp.sum(jnp.abs(S.rfft_large(
-        v, backend="pallas")) ** 2))(x)
+        v, backend=backend)) ** 2))(x)
     want = jax.grad(lambda v: jnp.sum(jnp.abs(jnp.fft.rfft(v)) ** 2))(x)
     assert g.shape == x.shape and bool(jnp.all(jnp.isfinite(g)))
     assert rel_err(np.asarray(g), np.asarray(want)) < 1e-5
 
 
-def test_irfft_large_differentiable_pallas(rng, interpret):
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
+def test_irfft_large_differentiable(rng, backend):
     import jax
     n = 1 << 15
     spec = jnp.asarray((rng.standard_normal(n // 2 + 1)
                         + 1j * rng.standard_normal(n // 2 + 1)
                         ).astype(np.complex64))
-    g = jax.grad(lambda v: jnp.sum(S.irfft_large(v, n=n) ** 2))(spec)
+    g = jax.grad(lambda v: jnp.sum(S.irfft_large(
+        v, n=n, backend=backend) ** 2))(spec)
     want = jax.grad(lambda v: jnp.sum(jnp.fft.irfft(v, n=n) ** 2))(spec)
     assert g.shape == spec.shape and bool(jnp.all(jnp.isfinite(g)))
     assert rel_err(np.asarray(g), np.asarray(want)) < 1e-5

@@ -1,12 +1,12 @@
-"""MXU mixed-radix engine tests: every size, direction, ordering, and
+"""Mixed-radix matmul engine tests: every size, direction, ordering, and
 several radix splits, cross-checked against numpy.fft and the specs."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import smfft_tpu.params as P
-from smfft_tpu.ops.matmul_fft import fft_matmul, digit_reverse_indices
+import smfft.params as P
+from smfft.ops.matmul_fft import fft_matmul, digit_reverse_indices
 
 from conftest import max_abs_err
 
@@ -51,19 +51,20 @@ def test_radix_splits_equivalent(rng, radices):
 
 def test_all_radix_2_unordered_is_bitreversed(rng):
     """With all radices 2, digit reversal == bit reversal (CT parity)."""
-    from smfft_tpu.models.cooley_tukey import bit_reverse_indices
+    from smfft.models.cooley_tukey import bit_reverse_indices
     n = 128
     radices = (2,) * 7
     perm = digit_reverse_indices(n, radices)
     assert np.array_equal(perm, bit_reverse_indices(n))
 
 
-@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+@pytest.mark.parametrize("precision", ["default", "high", "highest",
+                                       "exact"])
 def test_precision_modes_run(rng, precision):
     x = rand_c(rng, 4, 256)
     ref = np.fft.fft(x.astype(np.complex128))
     got = fft_matmul(jnp.array(x), precision=precision)
-    # On CPU all precisions are exact fp32; on TPU "default" is bf16-loose.
+    # On CPU all precisions are exact fp32; on a GPU "default" is TF32.
     assert max_abs_err(got, ref) < 1.0
 
 
@@ -76,7 +77,7 @@ def test_batch_shapes_preserved(rng):
 
 
 def test_wrong_size_raises():
-    import smfft_tpu as S
+    import smfft as S
     with pytest.raises(ValueError, match="wrong FFT length"):
         S.fft(jnp.zeros((4, 100), jnp.complex64))
     with pytest.raises(ValueError, match="wrong FFT length"):
@@ -84,7 +85,7 @@ def test_wrong_size_raises():
 
 
 def test_inverse_roundtrip(rng):
-    import smfft_tpu as S
+    import smfft as S
     x = rand_c(rng, 4, 1024)
     y = S.fft(jnp.array(x), backend="xla")
     back = S.ifft(y, backend="xla")

@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from smfft_tpu.models.cooley_tukey import fft_dit, bit_reverse_indices
-from smfft_tpu.models.stockham import fft_stockham
-from smfft_tpu.models import real as R
-from smfft_tpu.params import SUPPORTED_C2C_SIZES, SUPPORTED_REAL_SIZES
+from smfft.models.cooley_tukey import fft_dit, bit_reverse_indices
+from smfft.models.stockham import fft_stockham
+from smfft.models import real as R
+from smfft.params import SUPPORTED_C2C_SIZES, SUPPORTED_REAL_SIZES
 
 from conftest import max_abs_err
 

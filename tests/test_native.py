@@ -4,7 +4,7 @@ implements the reference's error-metric semantics exactly."""
 import numpy as np
 import pytest
 
-from smfft_tpu import native
+from smfft import native
 
 
 def test_library_builds_and_loads():

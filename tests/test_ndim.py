@@ -1,11 +1,11 @@
-"""N-D transforms (smfft_tpu.ndim) vs the numpy.fft float64 oracle."""
+"""N-D transforms (smfft.ndim) vs the numpy.fft float64 oracle."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from smfft_tpu import ndim
+from smfft import ndim
 
 
 def _tol(*ns):

@@ -1,21 +1,13 @@
-"""Overlap-save linear convolution (smfft_tpu.signal.fftconvolve) vs
-numpy.convolve, on the Pallas interpreter (CPU)."""
+"""Overlap-save linear convolution (smfft.signal.fftconvolve) vs
+numpy.convolve."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import smfft_tpu as S
-import smfft_tpu.ops.pallas_c2c as PC
+import smfft as S
 
 from conftest import max_abs_err
-
-
-@pytest.fixture(autouse=True, scope="module")
-def interpret_mode():
-    PC.set_interpret(True)
-    yield
-    PC.set_interpret(False)
 
 
 def to_dev(x):

@@ -1,22 +1,14 @@
-"""Analytic signal / correlation / resampling (smfft_tpu.signal) and
-arbitrary-length real transforms (smfft_tpu.bluestein) vs scipy/numpy
-float64 oracles, on the Pallas interpreter (CPU)."""
+"""Analytic signal / correlation / resampling (smfft.signal) and
+arbitrary-length real transforms (smfft.bluestein) vs scipy/numpy
+float64 oracles."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import smfft_tpu as S
-import smfft_tpu.ops.pallas_c2c as PC
+import smfft as S
 
 from conftest import max_abs_err
-
-
-@pytest.fixture(autouse=True, scope="module")
-def interpret_mode():
-    PC.set_interpret(True)
-    yield
-    PC.set_interpret(False)
 
 
 # --------------------------------------------------------------------------

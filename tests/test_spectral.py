@@ -1,21 +1,11 @@
-"""Spectral-analysis layer: fused power-spectrum kernel
-(ops/spectral.py) + periodogram / Welch / STFT / spectrogram wrappers
-(signal.py) vs numpy/scipy oracles, on the Pallas interpreter (CPU)."""
+"""Spectral-analysis layer: power spectrum + periodogram / Welch / STFT /
+spectrogram wrappers (signal.py) vs numpy/scipy oracles."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import smfft_tpu.ops.pallas_c2c as PC
-from smfft_tpu import signal as SG
-from smfft_tpu.ops import spectral
-
-
-@pytest.fixture(autouse=True, scope="module")
-def interpret_mode():
-    PC.set_interpret(True)
-    yield
-    PC.set_interpret(False)
+from smfft import signal as SG
 
 
 def np_power(x, w=None):
@@ -25,43 +15,41 @@ def np_power(x, w=None):
     return np.abs(spec[..., : x.shape[-1] // 2]) ** 2
 
 
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
 @pytest.mark.parametrize("n", [256, 1024])
-def test_power_kernel_vs_numpy(rng, n):
+def test_power_spectrum_vs_numpy(rng, n, backend):
     x = (rng.random((16, n)) - 0.5).astype(np.float32)
-    got = np.asarray(spectral.power_pencil_planar(jnp.array(x), n))
+    got = np.asarray(SG.power_spectrum(jnp.array(x), backend=backend))
     want = np_power(x)
     assert got.shape == (16, n // 2)
     scale = max(1.0, float(np.max(want)))
     assert np.max(np.abs(got - want)) / scale < 1e-5
 
 
-def test_power_kernel_windowed(rng):
+def test_power_spectrum_windowed(rng):
     n = 512
     x = (rng.random((8, n)) - 0.5).astype(np.float32)
     w = np.asarray(SG.get_window("hann", n))
-    got = np.asarray(spectral.power_pencil_planar(
-        jnp.array(x), n, window=jnp.array(w)))
+    got = np.asarray(SG.power_spectrum(jnp.array(x), window=jnp.array(w)))
     want = np_power(x, w)
     scale = max(1.0, float(np.max(want)))
     assert np.max(np.abs(got - want)) / scale < 1e-5
 
 
-def test_power_kernel_bad_sizes(rng):
-    x = jnp.zeros((8, 192), jnp.float32)
+def test_power_spectrum_bad_sizes():
     with pytest.raises(ValueError, match="wrong FFT length"):
-        spectral.power_pencil_planar(x, 192)
-    with pytest.raises(ValueError, match="window"):
-        spectral.power_pencil_planar(jnp.zeros((8, 256), jnp.float32),
-                                     256, window=jnp.zeros(128))
+        SG.power_spectrum(jnp.zeros((8, 192), jnp.float32))
+    with pytest.raises(ValueError, match="wrong FFT length"):
+        SG.power_spectrum(jnp.zeros((8, 128), jnp.float32))
 
 
-def test_power_spectrum_api_fallback_matches_fused(rng):
+def test_power_spectrum_backends_agree(rng):
     n = 256
     x = (rng.random((4, n)) - 0.5).astype(np.float32)
-    fused = np.asarray(SG.power_spectrum(jnp.array(x), backend="pallas"))
-    xla = np.asarray(SG.power_spectrum(jnp.array(x), backend="xla"))
-    assert fused.shape == xla.shape == (4, n // 2)
-    assert np.max(np.abs(fused - xla)) < 1e-4
+    a = np.asarray(SG.power_spectrum(jnp.array(x), backend="jnp"))
+    b = np.asarray(SG.power_spectrum(jnp.array(x), backend="xla"))
+    assert a.shape == b.shape == (4, n // 2)
+    assert np.max(np.abs(a - b)) < 1e-4
 
 
 def test_get_window_vs_scipy():
